@@ -8,7 +8,7 @@
 // same algorithm its numba-compiled kernel runs per thread — built with
 // the same compiler class (LLVM there, GCC -O3 here).  bench.py times it
 // on the bench host over a small grid and scales by an assumed thread
-// count (documented in BASELINE.md) to estimate the reference's 8-thread
+// count (bench.py REFERENCE_THREADS) to estimate the reference's 8-thread
 // throughput.
 //
 // Exposed C ABI (ctypes; see bench.py:measured_baseline):

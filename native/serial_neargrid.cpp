@@ -6,10 +6,8 @@
 // label adoption and known-marking; refinement.py:16-508 +
 // thread_handlers.py:128-236 'changed'-mode edge refinement), written from
 // the same spec as the repo's numpy oracle (tests/oracle.py:255-518) — the
-// two are label-parity-checked by tests/test_serial_native.py.  bench.py
-// cannot afford to run this at 384^3 inside the driver budget; BASELINE.md
-// records anchor timings measured with _exp/serial_default.py and the
-// assumed thread scaling.
+// two are label-parity-checked by tests/test_serial_native.py.
+// chip_smoke.py compares the device pipeline's labels with it at 256^3.
 //
 // Exposed C ABI (ctypes):
 //   long sn_neargrid(const double* rho, long nx, long ny, long nz,

@@ -1,17 +1,16 @@
-"""pybader_tpu — TPU-native grid-based Bader charge analysis.
+"""pybader_tpu — data-parallel grid-based Bader charge analysis in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of grid-based Bader charge
+A from-scratch JAX/XLA re-design of grid-based Bader charge
 partitioning (Tang, Sanville & Henkelman, J. Phys.: Condens. Matter 21,
-084204 (2009)).  Feature surface mirrors the reference CPU package
-(`pybader`, see /root/reference): VASP CHGCAR / Gaussian cube / GPAW /
+084204 (2009)) that runs on a GPU, or on the CPU for tests.  Feature
+surface mirrors the reference CPU package (`pybader`): VASP CHGCAR / Gaussian cube / GPAW /
 pymatgen densities in; Bader volumes, maxima, per-volume and per-atom
 charge/spin/volume, minimum surface distances, and masked density exports
 out.
 
 Precision note: all partitioning decisions and charge reductions run in
-float64 (XLA emulates f64 on TPU) so that labels and charges match a CPU
-float64 reference bit-for-bit where the algorithm is order-independent.
-A float32 fast path is available via ``precision='fp32'``.
+float64 so that labels and charges match a CPU float64 reference
+bit-for-bit where the algorithm is order-independent.
 """
 import jax as _jax
 

@@ -1,6 +1,6 @@
 """Console entry points: ``bader`` and ``bader-read``.
 
-Mirrors the reference CLI surface (/root/reference/pybader/entry_points.py):
+Mirrors the reference CLI surface (pybader's entry_points.py):
 same flags, same config-profile handling, same pickle re-analysis tool.
 """
 from __future__ import annotations
@@ -59,18 +59,20 @@ def _parse_vacuum(value):
 def bader(argv=None):
     """Main CLI: run a Bader calculation on a density file."""
     config_writer(quiet=True)
+    from pybader_tpu.precompile import enable_persistent_cache, warm
+
     try:  # persistent XLA compilation cache: first runs compile, later
-        from pybader_tpu.precompile import enable_persistent_cache, warm
-        cache_dir = enable_persistent_cache()  # later runs reuse binaries
-        if not os.listdir(cache_dir):
-            # first run ever: seed the cache with the hot stages (the
-            # reference warms its numba cache at install; jits.py analog)
-            print("  First run: warming the compilation cache... ",
-                  end="", flush=True)
-            warm()
-            print("done.")
-    except Exception as e:
+        cache_dir = enable_persistent_cache()  # runs reuse binaries
+    except OSError as e:  # unwritable cache directory: run uncached
         print(f"  (compilation cache unavailable: {e})")
+        cache_dir = None
+    if cache_dir is not None and not os.listdir(cache_dir):
+        # first run ever: seed the cache with the hot stages (the
+        # reference warms its numba cache at install; jits.py analog)
+        print("  First run: warming the compilation cache... ",
+              end="", flush=True)
+        warm()
+        print("done.")
     config = ConfigParser()
     config.read(__config__)
 
@@ -101,7 +103,7 @@ def bader(argv=None):
                         help="File type of the input")
     parser.add_argument('-j', '--threads', nargs=1, type=int,
                         help="Host threads for file parsing (compute runs "
-                             "on the TPU/accelerator)")
+                             "on the JAX device)")
     parser.add_argument('-s', '--spin', action='store_true',
                         help="Also read and analyse the spin density")
     parser.add_argument('-x', '--speed', action='store_true',
@@ -121,7 +123,7 @@ def bader(argv=None):
 
     config_key = args['config'][0] if args['config'] is not None else 'DEFAULT'
     conf = python_config(__config__, config_key)
-    print(f"\n  Bader Charge Analysis — TPU ({__version__})\n")
+    print(f"\n  Bader Charge Analysis — JAX ({__version__})\n")
 
     if args.get('method') is not None:
         conf['method'] = args['method'][0]

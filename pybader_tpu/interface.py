@@ -1,9 +1,9 @@
 """User interface: the Bader class and config handling.
 
-API parity with the reference interface (/root/reference/pybader/
-interface.py): same configurable attribute surface, result attributes,
-derived-geometry properties, pipeline driver (``__call__``), text results and
-pickle persistence — orchestrating the TPU device pipelines of
+API parity with the reference interface (pybader's interface.py): same
+configurable attribute surface, result attributes, derived-geometry
+properties, pipeline entry point (``__call__``), text results and pickle
+persistence — orchestrating the device pipelines of
 :mod:`pybader_tpu.pipeline` instead of a thread pool.
 
 Reference bugs deliberately fixed (not copied):
@@ -23,7 +23,6 @@ from pickle import dump
 from time import perf_counter
 
 import numpy as np
-import pandas as pd
 
 from pybader_tpu import io
 from pybader_tpu.dunders import __config__
@@ -43,8 +42,8 @@ def _stage(name, multiline=False):
 
     Yields a ``tick(msg)`` callable: the host-driven device loops (flood
     rounds, walker segments, refinement iterations) call it with short
-    status strings that overwrite a single console line — the TPU analog
-    of the reference's counter-polling tqdm thread (utils.py:107-142,
+    status strings that overwrite a single console line — the device-side
+    analog of the reference's counter-polling tqdm thread (utils.py:107-142,
     thread_handlers.py:53-58); here the host loop IS the poller.
     """
     if multiline:
@@ -66,6 +65,20 @@ def _stage(name, multiline=False):
         print(f"  {name} done in {dt:.3f}s")
     else:
         print(f"done in {dt:.3f}s")
+
+
+def _format_table(index, cols):
+    """Fixed-width text rows: a header of centred column names, then one
+    row per index label with values to six decimals, right-aligned."""
+    labels = [str(i) for i in index]
+    wi = max((len(s) for s in labels), default=0)
+    body = {k: [f"{x:.6f}" for x in v] for k, v in cols.items()}
+    widths = {k: max([len(k)] + [len(s) for s in body[k]]) for k in cols}
+    lines = [' ' * wi + ''.join(f"  {k:^{widths[k]}}" for k in cols)]
+    for r, label in enumerate(labels):
+        lines.append(f"{label:>{wi}}" + ''.join(
+            f"  {body[k][r]:>{widths[k]}}" for k in cols))
+    return lines
 
 
 # Configurable attributes and their allowed types (config.ini type-checking)
@@ -146,7 +159,7 @@ def python_config(config_file=__config__, key='DEFAULT'):
 
 
 class Bader:
-    """Grid-based Bader charge analysis on TPU.
+    """Grid-based Bader charge analysis on a JAX device (GPU or CPU).
 
     args:
         density_dict: dict with 'charge' and/or 'spin' float64 grids
@@ -352,35 +365,37 @@ class Bader:
     def vacuum_volume(self, value):
         self._vacuum_volume = value
 
+    def _columns(self, volumes=False):
+        """Result table columns: per atom, or per Bader volume."""
+        if volumes:
+            frac = self.bader_maxima_fractional
+            cols = {'a': frac[:, 0], 'b': frac[:, 1], 'c': frac[:, 2],
+                    'Charge': self.bader_charge}
+            if self.spin_bool:
+                cols['Spin'] = self.bader_spin
+            cols['Volume'] = self.bader_volume
+            cols['Distance'] = self.bader_distance
+        else:
+            frac = self.atoms_fractional
+            cols = {'a': frac[:, 0], 'b': frac[:, 1], 'c': frac[:, 2],
+                    'Charge': self.atoms_charge}
+            if self.spin_bool:
+                cols['Spin'] = self.atoms_spin
+            cols['Volume'] = self.atoms_volume
+            cols['Distance'] = self.atoms_surface_distance
+        return {k: np.asarray(v, dtype=np.float64) for k, v in cols.items()}
+
     @property
     def dataframe(self):
+        """Per-atom rows, then (without speed_flag) per-volume rows, as a
+        pandas DataFrame.  pandas is optional: it is imported only here."""
         if self._dataframe is None:
-            cols = {
-                'a': pd.Series(self.atoms_fractional[:, 0]),
-                'b': pd.Series(self.atoms_fractional[:, 1]),
-                'c': pd.Series(self.atoms_fractional[:, 2]),
-                'Charge': pd.Series(self.atoms_charge),
-            }
-            if self.spin_bool:
-                cols['Spin'] = pd.Series(self.atoms_spin)
-            cols['Volume'] = pd.Series(self.atoms_volume)
-            cols['Distance'] = pd.Series(self.atoms_surface_distance)
+            import pandas as pd
+
+            frames = [pd.DataFrame(self._columns())]
             if not self.speed_flag:
-                extra = {
-                    'a': self.bader_maxima_fractional[:, 0],
-                    'b': self.bader_maxima_fractional[:, 1],
-                    'c': self.bader_maxima_fractional[:, 2],
-                    'Charge': self.bader_charge,
-                }
-                if self.spin_bool:
-                    extra['Spin'] = self.bader_spin
-                extra['Volume'] = self.bader_volume
-                extra['Distance'] = self.bader_distance
-                for k in cols:
-                    cols[k] = pd.concat(
-                        [cols[k], pd.Series(extra[k])], ignore_index=False
-                    )
-            self._dataframe = pd.DataFrame(cols)
+                frames.append(pd.DataFrame(self._columns(volumes=True)))
+            self._dataframe = pd.concat(frames)
         return self._dataframe
 
     @dataframe.setter
@@ -594,23 +609,18 @@ class Bader:
     # -------------------------------------------------------------- results
     def results(self, volume_flag=False):
         """Format results as fixed-width text (reference interface.py:536)."""
-        if volume_flag:
-            df = self.dataframe[self.atoms.shape[0]:]
-            tol = self.bader_volume_tol
-            if tol is not None:
-                df = df[df['Charge'] > tol]
-        else:
-            df = self.dataframe[:self.atoms.shape[0]]
-        df_text = df.to_string(
-            float_format='{:.6f}'.format, justify='center'
-        ).split('\n')
-        for i, line in enumerate(df_text):
-            df_text[i] = ' ' + line + '\n'
+        cols = self._columns(volumes=volume_flag)
+        index = np.arange(cols['Charge'].shape[0])
+        if volume_flag and self.bader_volume_tol is not None:
+            keep = cols['Charge'] > self.bader_volume_tol
+            cols = {k: v[keep] for k, v in cols.items()}
+            index = index[keep]
+        df_text = [' ' + line + '\n' for line in _format_table(index, cols)]
         df_text.insert(1, '-' * len(df_text[0]) + '\n')
         df_text.append('-' * len(df_text[0]) + '\n')
         df_text = ''.join(df_text)
         footer = ''
-        tot_charge = df['Charge'].sum()
+        tot_charge = cols['Charge'].sum()
         footer_width = int(np.log10(np.abs(tot_charge)) + 8) if tot_charge else 8
         if self.vacuum_tol is not None:
             vac_items = [self.vacuum_charge, self.vacuum_volume]

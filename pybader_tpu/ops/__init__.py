@@ -1,6 +1,6 @@
-"""Device compute kernels (JAX/XLA/Pallas) for Bader partitioning.
+"""Device compute kernels (plain JAX/XLA) for Bader partitioning.
 
-Each module here is the TPU-native equivalent of one or more of the
+Each module here is the data-parallel equivalent of one or more of the
 reference's 19 numba ``@njit`` kernels (see SURVEY.md §2.4):
 
  - :mod:`stencil`    — ongrid ascent-pointer stencil (ref methods.py:15-219)
@@ -8,6 +8,8 @@ reference's 19 numba ``@njit`` kernels (see SURVEY.md §2.4):
                        (replaces serial path-following, path buffers,
                        volume_extend / volume_merge / volume_offset /
                        edge_assign chunk-merge machinery)
+ - :mod:`scanflood`  — directional plane-scan label flooding (the
+                       accelerator route of the ongrid partition)
  - :mod:`neargrid`   — vectorised neargrid trajectory walker
                        (ref methods.py:222-611, refinement.py:16-322)
  - :mod:`edges`      — edge_find / edge_check stencils
@@ -20,20 +22,3 @@ reference's 19 numba ``@njit`` kernels (see SURVEY.md §2.4):
  - :mod:`atoms`      — maxima->atom assignment and min surface distance
                        (ref utils.py: atom_assign, surface_dist)
 """
-
-import os as _os
-
-
-def pallas_disabled(name: str) -> bool:
-    """Operational escape hatch: PYBADER_TPU_DISABLE_PALLAS is a comma
-    list of backend names ('flood', 'edges', 'stencil', 'reduce',
-    'surface', 'chase' or 'all') whose Pallas kernels are skipped in
-    favour of the XLA formulations.  Diagnostic/fallback knob — e.g. to
-    sidestep a Mosaic compile problem at one grid size without a code
-    change; the XLA paths are semantically identical (pinned by the
-    interpret-mode parity tests)."""
-    raw = _os.environ.get("PYBADER_TPU_DISABLE_PALLAS", "")
-    if not raw:
-        return False
-    items = {s.strip().lower() for s in raw.split(",")}
-    return "all" in items or name.lower() in items

@@ -1,6 +1,6 @@
 """Maxima -> atom assignment and minimum surface distance.
 
-TPU-native equivalents of reference utils.py atom_assign (:185-232, serial
+Data-parallel equivalents of reference utils.py atom_assign (:185-232, serial
 M x A x 27 brute force) and surface_dist (:320-379, per-edge-voxel distance
 to its own atom): both become fully vectorised distance reductions.
 """
@@ -10,7 +10,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def _image_shifts(lattice):
@@ -45,39 +44,17 @@ def assign_to_atoms(maxima_cart: jax.Array, atoms_cart: jax.Array,
 
 
 def surface_distance_masked(labels: jax.Array, edge_mask: jax.Array,
-                            lattice, atoms_cart, num_atoms: int,
-                            interpret: bool = False):
-    """Min distance from each atom to its own volume's surface, straight
-    from the edge MASK (no compaction).
+                            lattice, atoms_cart, num_atoms: int):
+    """Min distance from each atom to its own volume's surface, from the
+    edge mask: compact the edge voxels, then
+    :func:`surface_distance_from_edges` in f64.
 
-    Pallas one-grid-read path on TPU (ops/pallas_reduce.surface_min_d2);
-    falls back to edge compaction + :func:`surface_distance_from_edges`
-    on CPU or when the atom count exceeds the kernel's label budget.
-    The Pallas path computes positions/distances in f32 (~1e-6 Å relative
-    error on the reported distances; the reference prints 6 decimals).
     returns (num_atoms,) f64 distances, 0.0 for atoms with no edge voxel
     (reference thread_handlers.py:289-297).
     """
-    from pybader_tpu.ops import pallas_disabled
-
-    shape = tuple(labels.shape)
-    use_pallas = (interpret or (jax.default_backend() != "cpu"
-                                and not pallas_disabled("surface")))
-    if use_pallas and int(num_atoms) <= 256:
-        try:
-            from pybader_tpu.ops.pallas_reduce import surface_min_d2
-
-            d2 = surface_min_d2(labels, edge_mask, jnp.asarray(lattice),
-                                jnp.asarray(atoms_cart), shape,
-                                int(num_atoms), interpret=interpret)
-            return jnp.where(jnp.isfinite(d2), jnp.sqrt(d2), 0.0)
-        except RuntimeError as e:  # Mosaic compile/launch failure
-            import warnings
-
-            warnings.warn(f"pallas surface kernel unavailable ({e}); "
-                          f"falling back to edge compaction")
     from pybader_tpu.ops.reductions import compact_indices
 
+    shape = tuple(labels.shape)
     mask_flat = edge_mask.reshape(-1)
     n_edges = int(jnp.sum(mask_flat))
     if n_edges == 0:
@@ -114,9 +91,11 @@ def surface_distance_from_edges(edge_idx: jax.Array, labels_flat: jax.Array,
     x = idx // (ny * nz)
     y = (idx // nz) % ny
     z = idx % nz
+    # cast before dividing: int32 / int promotes to float32 in JAX
+    dt = lattice.dtype
     frac = jnp.stack(
-        [x / nx, y / ny, z / nz], axis=-1
-    ).astype(lattice.dtype)  # (K, 3)
+        [x.astype(dt) / nx, y.astype(dt) / ny, z.astype(dt) / nz], axis=-1
+    )  # (K, 3)
     pc = frac @ lattice
     lab = jnp.take(labels_flat, idx, mode="clip").astype(jnp.int32)
     own = jnp.take(atoms_cart, jnp.clip(lab, 0), axis=0, mode="clip")

@@ -1,6 +1,6 @@
 """Edge detection stencils.
 
-TPU-native equivalents of reference refinement.py:325-405 (edge_find) and
+Data-parallel equivalents of reference refinement.py:325-405 (edge_find) and
 :408-508 (edge_check): one fused 26-neighbour stencil pass instead of a
 serial scan with in-place neighbour marking.  The serial reference's marking
 order turns out not to affect the final ``known`` state (any non-edge voxel
@@ -32,7 +32,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pybader_tpu.grid import OFFSETS, SELF_INDEX
+from pybader_tpu.grid import OFFSETS
 
 
 def _axis3(a, axis, combine):
@@ -83,56 +83,14 @@ def _dilate26(mask):
     return _box_reduce(mask, jnp.logical_or)
 
 
-def _pallas_edges_ok(labels, is_max) -> bool:
-    from pybader_tpu.ops import pallas_disabled
-
-    if is_max is None or jax.default_backend() == "cpu" \
-            or pallas_disabled("edges"):
-        return False
-    try:
-        if isinstance(labels, jax.core.Tracer):
-            # under an outer jit/shard_map trace the runtime Mosaic
-            # fallback could not catch compile failures, and sharded
-            # callers want the GSPMD roll stencils anyway
-            return False
-        sharding = getattr(labels, "sharding", None)
-        if sharding is None or len(
-                getattr(sharding, "device_set", (1, 1))) > 1:
-            return False
-    except Exception:
-        return False
-    from pybader_tpu.ops import pallas_edges
-
-    return pallas_edges.supports_shape(labels.shape)
-
-
+@jax.jit
 def edge_find(reference: jax.Array, labels: jax.Array,
               is_max: jax.Array | None = None) -> jax.Array:
     """Full-grid edge scan -> known int8 grid (see module docstring).
 
-    One-pass Pallas kernel on TPU-supported shapes when ``is_max`` is
-    supplied (ops/pallas_edges.py — identical output, pinned by
-    interpret-mode and on-device tests); separable XLA rolls otherwise.
+    Separable roll stencils; ``is_max`` (the self step of the ascent
+    stencil) skips the density rolls when the caller has it.
     """
-    labels = jnp.asarray(labels)
-    if _pallas_edges_ok(labels, is_max):
-        from pybader_tpu.ops import pallas_edges
-
-        try:
-            return pallas_edges.edge_find(labels, is_max)
-        except Exception as e:  # Mosaic compile/launch failure; remote
-            # AOT compile errors do not reliably subclass RuntimeError,
-            # and the jitted XLA path below is semantically identical
-            import warnings
-
-            warnings.warn(f"pallas edge kernel unavailable ({e}); "
-                          f"falling back to XLA rolls")
-    return _edge_find_xla(reference, labels, is_max)
-
-
-@jax.jit
-def _edge_find_xla(reference: jax.Array, labels: jax.Array,
-                   is_max: jax.Array | None = None) -> jax.Array:
     nonvac = labels != -1
     is_edge, is_max = _edge_and_max(reference, labels, is_max)
     edge = nonvac & is_edge & ~is_max
@@ -186,32 +144,14 @@ def filter_edges_sorted(cand: jax.Array, known_flat: jax.Array):
     return jnp.where(out == big, jnp.int32(-1), out), count
 
 
+@jax.jit
 def edge_check(known: jax.Array, reference: jax.Array,
                labels: jax.Array,
                is_max: jax.Array | None = None) -> jax.Array:
     """Re-scan only the 27-neighbourhoods of changed edges (known == -2).
 
     Returns the updated known grid; the new edge set is ``known == -2``.
-    Pallas one-pass kernel on TPU-supported shapes (see edge_find).
     """
-    labels = jnp.asarray(labels)
-    if _pallas_edges_ok(labels, is_max):
-        from pybader_tpu.ops import pallas_edges
-
-        try:
-            return pallas_edges.edge_check(known, labels, is_max)
-        except Exception as e:  # see edge_find: fall back, never die
-            import warnings
-
-            warnings.warn(f"pallas edge kernel unavailable ({e}); "
-                          f"falling back to XLA rolls")
-    return _edge_check_xla(known, reference, labels, is_max)
-
-
-@jax.jit
-def _edge_check_xla(known: jax.Array, reference: jax.Array,
-                    labels: jax.Array,
-                    is_max: jax.Array | None = None) -> jax.Array:
     nonvac = labels != -1
     changed = known == -2
     cand = _dilate26(changed) & nonvac  # self included in the box

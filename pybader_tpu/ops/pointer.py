@@ -78,34 +78,21 @@ def compact_labels(roots: jax.Array, maxima_sorted: jax.Array,
 
 
 def resolve_roots_auto(parent, best_k=None):
-    """Resolve roots with the fastest available backend.
-
-    On TPU-like backends this uses directional-scan flooding
-    (pybader_tpu/ops/scanflood.py, any grid shape) — XLA's gather is ~45M
-    lookups/s on TPU, making classic doubling the pipeline bottleneck, and
-    the scans beat the Pallas block chase on long-chain fields.  Elsewhere
-    (CPU tests) falls back to pointer doubling.
+    """Resolve roots: directional-scan flooding on an accelerator
+    (:mod:`pybader_tpu.ops.scanflood`, any grid shape, cost set by the
+    number of chain bends), pointer doubling on the CPU and on sharded
+    arrays.
     """
-    from pybader_tpu.ops import pallas_chase, scanflood
+    from pybader_tpu.ops import scanflood
 
-    platform = jax.default_backend()
     single_device = (
         not hasattr(parent, "sharding")
         or len(getattr(parent.sharding, "device_set", [None])) <= 1
     )
-    if platform != "cpu" and single_device:
-        try:
-            if best_k is None:
-                best_k = pallas_chase.step_code_from_parent(parent)
-            return scanflood.resolve_roots_scan(best_k)
-        except RuntimeError as e:  # pragma: no cover - non-convergence
-            import warnings
-
-            warnings.warn(
-                "scan-flood root resolution failed "
-                f"({type(e).__name__}: {e}); falling back to XLA pointer "
-                "doubling (slow on TPU)", RuntimeWarning,
-            )
+    if jax.default_backend() != "cpu" and single_device:
+        if best_k is None:
+            best_k = scanflood.step_code_from_parent(parent)
+        return scanflood.resolve_roots_scan(best_k)
     return resolve_roots(parent)
 
 

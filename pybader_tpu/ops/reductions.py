@@ -1,6 +1,6 @@
 """On-device reductions and label remaps.
 
-TPU-native equivalents of the reference's full-grid scan kernels:
+Data-parallel equivalents of the reference's full-grid scan kernels:
  - vacuum_assign  (ref utils.py:382-401)  -> masked where + two f64 sums
  - charge_sum     (ref utils.py:235-252)  -> segment_sum over labels
  - volume_assign  (ref utils.py:404-421)  -> lookup-table gather
@@ -9,26 +9,11 @@ TPU-native equivalents of the reference's full-grid scan kernels:
 """
 from __future__ import annotations
 
-import warnings
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-
-def _pallas_reduce_ok(a, num_segments: int) -> bool:
-    """Route to the Pallas per-label kernels: TPU, small label count,
-    single-device array (pallas_call does not auto-partition)."""
-    from pybader_tpu.ops import pallas_disabled, pallas_reduce
-
-    if jax.default_backend() == "cpu" or pallas_disabled("reduce"):
-        return False
-    if num_segments > pallas_reduce.MAX_LABELS:
-        return False
-    sharding = getattr(a, "sharding", None)
-    return sharding is None or len(getattr(
-        sharding, "device_set", ())) <= 1
 
 
 @jax.jit
@@ -54,40 +39,7 @@ def _tile_cols(n: int, target: int = 4096) -> int:
     return c
 
 
-@partial(jax.jit, static_argnames=("num_segments", "cols"))
-def _charge_volume_twolevel(hi, lo, flat_lab, num_segments, cols):
-    """Two-level per-label sums in split-f32: native-speed on TPU.
-
-    Level 1: per-row f32 partial sums of the hi/lo density halves and the
-    member count (rows of ``cols`` elements — f32 tree error ~2^-24*sqrt(
-    cols) relative, uncorrelated across rows).  Level 2: f64 sums of the
-    (n/cols,) partials.  Net relative error ~1e-8: far below the 1e-6 e
-    parity budget, at VPU-f32 speed instead of emulated-f64 (measured 151ms
-    -> ~10ms at 384^3, 60 labels).
-    """
-    hi2 = hi.reshape(-1, cols)
-    lo2 = lo.reshape(-1, cols)
-    lab2 = flat_lab.reshape(-1, cols)
-    group = 8
-    n_groups = -(-num_segments // group)
-
-    def one(k0):
-        cs, vs = [], []
-        for j in range(group):
-            m = lab2 == k0 + j
-            ph = jnp.sum(jnp.where(m, hi2, jnp.float32(0)), axis=1)
-            pl_ = jnp.sum(jnp.where(m, lo2, jnp.float32(0)), axis=1)
-            pc = jnp.sum(m.astype(jnp.float32), axis=1)
-            cs.append(jnp.sum(ph.astype(jnp.float64))
-                      + jnp.sum(pl_.astype(jnp.float64)))
-            vs.append(jnp.sum(pc.astype(jnp.float64)))
-        return jnp.stack(cs), jnp.stack(vs)
-
-    starts = jnp.arange(n_groups, dtype=flat_lab.dtype) * group
-    charge, volume = jax.lax.map(one, starts)
-    return charge.reshape(-1), volume.reshape(-1)
-
-
+@partial(jax.jit, static_argnames=("num_segments",))
 def charge_volume_sum(density: jax.Array, labels: jax.Array,
                       voxel_vol: jax.Array, num_segments: int):
     """Per-label integrated charge and volume (labels < 0 are excluded).
@@ -96,41 +48,15 @@ def charge_volume_sum(density: jax.Array, labels: jax.Array,
     voxel_volume * sum(density where labels==l); volume[l] = voxel_volume *
     count(labels==l).
 
-    For small label counts a masked-sum sweep is used instead of
-    segment_sum: f64 scatter-add is ~12x slower than f64 tree reductions
-    under TPU x64 emulation (measured 5.3s vs 0.4s at 384^3), while K full
-    masked passes are bandwidth-bound.  On TPU small label counts take the
-    one-grid-read Pallas kernel (ops/pallas_reduce.py), larger ones the
-    split-f32 XLA sweep (:func:`_charge_volume_twolevel`); elsewhere (CPU
-    tests, exact parity) the sweep runs in f64.
+    Large grids with few labels take masked-sum sweeps (8 labels per
+    grid pass, f64 tree reductions, no scatter): a scatter-add into a
+    handful of segments serialises on the same few addresses, while the
+    sweeps are plain streaming reductions.  Everything else takes
+    segment_sum.  Both run in f64.
     """
-    if (num_segments <= 1024 and labels.size >= (1 << 22)
-            and _pallas_reduce_ok(labels, num_segments)):
-        from pybader_tpu.ops import pallas_reduce
-
-        try:
-            return pallas_reduce.charge_volume(
-                density, labels, voxel_vol, num_segments)
-        except RuntimeError as e:  # Mosaic compile failure: XLA fallback
-            warnings.warn(f"pallas charge_volume fell back to XLA: {e}")
-    return _charge_volume_sum_xla(density, labels, voxel_vol, num_segments)
-
-
-@partial(jax.jit, static_argnames=("num_segments",))
-def _charge_volume_sum_xla(density: jax.Array, labels: jax.Array,
-                           voxel_vol: jax.Array, num_segments: int):
     flat_lab = labels.reshape(-1)
     flat_rho = density.reshape(-1)
     if num_segments <= 1024 and flat_lab.size >= (1 << 22):
-        if jax.default_backend() != "cpu":
-            hi = flat_rho.astype(jnp.float32)
-            lo = (flat_rho - hi.astype(flat_rho.dtype)).astype(jnp.float32)
-            cols = _tile_cols(flat_lab.size)
-            charge, volume = _charge_volume_twolevel(
-                hi, lo, flat_lab, num_segments, cols)
-            charge = charge[:num_segments]
-            volume = volume[:num_segments]
-            return charge * voxel_vol, volume * voxel_vol
         group = 8  # 8 masks per grid pass (multi-output reduction fusion;
         # a broadcasted (group, n) formulation materialises ~n*group f64)
         n_groups = -(-num_segments // group)
@@ -194,44 +120,16 @@ def masked_min_pair(values: jax.Array, labels: jax.Array,
     return mins.reshape(-1)[:num_segments], mmins.reshape(-1)[:num_segments]
 
 
-def min_pair_iota(values: jax.Array, labels: jax.Array, mask: jax.Array,
-                  num_segments: int):
-    """:func:`masked_min_pair` specialised to ``values`` = the flat-index
-    iota grid (the renumber stage's only use) — routes to the Pallas
-    kernel on TPU, which generates the iota in-kernel."""
-    if _pallas_reduce_ok(labels, num_segments):
-        from pybader_tpu.ops import pallas_reduce
-
-        try:
-            return pallas_reduce.min_pair(labels, mask, num_segments)
-        except RuntimeError as e:
-            warnings.warn(f"pallas min_pair fell back to XLA: {e}")
-    return masked_min_pair(values, labels, mask, num_segments)
-
-
-def remap_labels(labels: jax.Array, table: jax.Array, num_segments: int):
-    """labels -> table[labels] (negatives preserved): Pallas kernel on
-    TPU, masked-select sweep (:func:`remap_sweep`) elsewhere."""
-    if _pallas_reduce_ok(labels, num_segments):
-        from pybader_tpu.ops import pallas_reduce
-
-        try:
-            return pallas_reduce.remap(labels, table, num_segments)
-        except RuntimeError as e:
-            warnings.warn(f"pallas remap fell back to XLA: {e}")
-    return remap_sweep(labels, table, num_segments)
-
-
 @partial(jax.jit, static_argnames=("num_segments",))
 def remap_sweep(labels: jax.Array, table: jax.Array,
                 num_segments: int) -> jax.Array:
     """labels -> table[labels] without a full-grid gather (masked sweeps).
 
     Negative labels are preserved.  Used to renumber basins to the
-    reference's discovery order on TPU, where an n-element gather into a
-    small table costs ~n/45M s but K masked selects are bandwidth-bound.
-    Small label counts unroll into one fused grid pass; larger counts loop
-    groups of 8 selects per pass.
+    reference's discovery order, sharded grids included: every select is
+    elementwise, so no device needs the whole table lookup.  Small label
+    counts unroll into one fused grid pass; larger counts loop groups of
+    8 selects per pass.
     """
     flat = labels.reshape(-1)
     out = jnp.where(flat < 0, flat, jnp.int32(0))
@@ -256,10 +154,9 @@ def remap_sweep(labels: jax.Array, table: jax.Array,
 def cumsum_blocked(x: jax.Array) -> jax.Array:
     """Inclusive 1-D int32 cumsum via recursive 128-lane blocks.
 
-    XLA's native long-1D cumsum lowers poorly on TPU (measured ~40ms over
-    56M elements); reshaping to (n/128, 128), scanning rows, and recursing
-    on the row totals is a few bandwidth-bound passes.  Falls back to
-    jnp.cumsum when the length has no 128 factor.
+    Reshaping to (n/128, 128), scanning rows, and recursing on the row
+    totals keeps a long 1-D scan to a few streaming passes.  Falls back
+    to jnp.cumsum when the length has no 128 factor.
     """
     n = x.shape[0]
     if n <= 4096 or n % 128 != 0:
@@ -275,8 +172,8 @@ def cumsum_blocked(x: jax.Array) -> jax.Array:
 def compact_indices(mask: jax.Array, size: int) -> jax.Array:
     """Flat indices of True entries, padded with -1, via a device sort.
 
-    jnp.nonzero(size=...) lowers poorly under x64 (5.2s at 56M on v5e);
-    a 32-bit key sort does the same compaction in ~0.2s.
+    A 32-bit key sort keeps the compaction out of x64 index arithmetic
+    (``jnp.nonzero(size=...)`` traces 64-bit cumsums under x64).
     """
     flat = mask.reshape(-1)
     n = flat.shape[0]
@@ -287,22 +184,13 @@ def compact_indices(mask: jax.Array, size: int) -> jax.Array:
         return jnp.where(out == big, jnp.int32(-1), out)
 
 
+@jax.jit
 def relabel(labels: jax.Array, swap: jax.Array) -> jax.Array:
     """Remap non-negative labels through a lookup table (vacuum preserved).
 
-    Equivalent to reference volume_assign (utils.py:404-421).  On TPU the
-    full-grid gather through the small table runs at the measured ~45M
-    lookups/s (1.2 s at 384^3); the select-sweep/Pallas remap paths are
-    bandwidth-bound instead.
+    Equivalent to reference volume_assign (utils.py:404-421): one
+    gather through the small table.
     """
-    if jax.default_backend() != "cpu" and swap.ndim == 1:
-        out = remap_labels(labels, swap, int(swap.shape[0]))
-        return out.astype(labels.dtype)
-    return _relabel_gather(labels, swap)
-
-
-@jax.jit
-def _relabel_gather(labels: jax.Array, swap: jax.Array) -> jax.Array:
     remapped = jnp.take(swap, jnp.clip(labels, 0), mode="clip").astype(
         labels.dtype
     )

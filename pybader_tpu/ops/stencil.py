@@ -6,7 +6,7 @@ each voxel, repeatedly move to the neighbour maximising
 greater (reference methods.py:87-117), with early exit into already-assigned
 voxels and chunk-local windows (methods.py:119-168).
 
-TPU-native formulation: the ascent target of a voxel is a pure local function
+Data-parallel formulation: the ascent target of a voxel is a pure local function
 of its 26-neighbourhood, so we compute every voxel's "parent" in one fused
 stencil pass, then converge labels with parallel pointer doubling
 (:mod:`pybader_tpu.ops.pointer`).  This removes all path buffers, window
@@ -81,8 +81,8 @@ def ongrid_step_codes(reference: jax.Array, weights: tuple) -> jax.Array:
 
     Memory-bounded variant of :func:`ongrid_parent`: a fori loop over the 27
     offsets with traced roll shifts keeps XLA's live temporaries to a few
-    grid-sized buffers (the fully unrolled form materialises ~27 f64 temps,
-    which under x64 emulation exceeds HBM at 512^3).
+    grid-sized buffers (the fully unrolled form materialises ~27 f64 grid
+    temporaries: 29 GB at 512^3).
     """
     offs = jnp.asarray(np.asarray(OFFSETS, dtype=np.int32))
     w = jnp.asarray(np.asarray(weights), dtype=reference.dtype)
@@ -127,8 +127,8 @@ def neargrid_init_codes(reference: jax.Array, bk: jax.Array,
     trajectory semantics: it captures the first-step boundary shift of
     the neargrid method at stencil cost, and the refinement walker (full
     dr accumulation) fixes the remaining band.  Accuracy at the shipping
-    config is measured against native/serial_neargrid.cpp in BASELINE.md
-    (_exp/hybrid_accuracy.py).
+    config against native/serial_neargrid.cpp is recorded in PERF.md
+    ("Hybrid accuracy").
     """
     rho = reference
     # per-axis central difference, non-strict flatness (methods.py:324)

@@ -114,8 +114,9 @@ def sharded_min_surface_distance(mesh: Mesh, reference, atoms_volumes,
         x = iota // (ny * nz)
         y = (iota // nz) % ny
         z = iota % nz
-        frac = jnp.stack([x / nx, y / ny, z / nz],
-                         axis=-1).astype(lattice.dtype)
+        dt = lattice.dtype  # int32 / int would promote to float32
+        frac = jnp.stack([x.astype(dt) / nx, y.astype(dt) / ny,
+                          z.astype(dt) / nz], axis=-1)
         pc = frac @ lattice
         own = jnp.take(atoms_shifted, jnp.clip(lab, 0), axis=0,
                        mode="clip")

@@ -1,9 +1,8 @@
 """Multi-device pointer-chain resolution: shard_map chase with halo rounds.
 
 This is the multi-chip product path replacing global pointer doubling
-(each doubling round all-gathers the full int32 grid).  It lifts the Pallas
-chase kernel's block+halo structure (ops/pallas_chase.py) to the device
-level:
+(each doubling round all-gathers the full int32 grid).  It chases
+pointers block-locally with a halo, one block per device:
 
  - the grid is sharded over a 2-D mesh on its two leading axes (z stays
    whole on every device, so z-rolls are exact locally);
@@ -17,8 +16,7 @@ level:
  - rounds of (exchange → local fixed point) repeat until a global pass
    changes nothing (``psum`` of per-device change flags).
 
-Correctness rests on the same invariant as the Pallas kernel: every
-intermediate value is a valid ``parent^t`` composition, compositions only
+Correctness rests on one invariant: every intermediate value is a valid ``parent^t`` composition, compositions only
 advance, and the unique fixed point per chain is its root — so stale halos
 can only delay convergence, never corrupt it.  The reference analog being
 replaced is the thread-chunk merge protocol
@@ -150,7 +148,8 @@ def sharded_chase(mesh: Mesh, values, bk, spec: P | None = None,
 
     args:
         values: (nx,ny,nz) int32 — one-step parents or a one-shot label
-                seed (ops/pallas_chase.labels_oneshot semantics).
+                seed (0 unlabeled, k for basin k-1; the flood seed of
+                :func:`pybader_tpu.ops.scanflood._flood_seed`).
         bk:     (nx,ny,nz) uint8 step codes in OFFSETS order (13 == self).
         spec:   grid PartitionSpec (leading two axes only); default
                 :func:`grid_spec_2d`.

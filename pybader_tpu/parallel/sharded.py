@@ -1,16 +1,17 @@
-"""Sharded (multi-chip) partitioning pipeline.
+"""Sharded (multi-device) partitioning pipeline.
 
 The density grid is sharded over a 2-D mesh ('x', 'y' — the first two grid
 axes); z stays replicated-contiguous so the innermost dimension keeps good
 layout.  Under jit+SPMD, XLA lowers the 26-neighbour rolls of the ascent
-stencil to halo exchanges (collective-permute) over ICI and the segment
+stencil to halo exchanges (collective-permute) between devices and the segment
 reductions to local sums + psum.  Pointer chains are resolved by the
 shard_map halo-round chase (:mod:`pybader_tpu.parallel.chase`) — block-local
 convergence per device with 1-ring halo exchanges, replacing the global
 all-gather pointer doubling that dominated the naive SPMD lowering.
 
-This module is exercised on a virtual CPU mesh in tests and by the driver's
-``dryrun_multichip``; on real hardware the same code spans a TPU slice.
+This module is exercised on a virtual CPU mesh in tests, and on real
+devices by ``__graft_entry__.dryrun_multichip`` and
+``chip_smoke.py --four-cards``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from pybader_tpu.ops.stencil import ongrid_parent, self_index
+from pybader_tpu.ops.stencil import (
+    ongrid_parent, ongrid_step_codes, self_index,
+)
 from pybader_tpu.ops.pointer import resolve_roots
 from pybader_tpu.parallel.chase import grid_spec_2d, sharded_chase
 
@@ -126,8 +129,8 @@ def _seed_local(bk_loc, vac_loc, spec, mesh, has_vacuum):
     Maxima are seeded with a 1-based label rank (device-linear order +
     local C-order position — any consistent numbering, fixed up afterwards
     by the discovery-order renumber), everything else with 0, vacuum with
-    the n_maxima+1 sentinel — the flooding semantics of
-    ops/pallas_chase.labels_oneshot, lifted to the mesh.
+    the n_maxima+1 sentinel — the flood seed of
+    :func:`pybader_tpu.ops.scanflood._flood_seed`, lifted to the mesh.
     """
     is_self = bk_loc == jnp.uint8(13)
     is_max = (is_self & ~vac_loc) if has_vacuum else is_self
@@ -161,8 +164,7 @@ def _seed_local(bk_loc, vac_loc, spec, mesh, has_vacuum):
     return seed, n_max
 
 
-def sharded_partition(mesh: Mesh, reference, vacuum, weights,
-                      exact_stencil: bool = True):
+def sharded_partition(mesh: Mesh, reference, vacuum, weights):
     """Full labelled partition on a device mesh, discovery-order numbering.
 
     Pipeline: GSPMD ascent stencil (rolls -> halo collectives) -> per-device
@@ -182,10 +184,9 @@ def sharded_partition(mesh: Mesh, reference, vacuum, weights,
         vac = jax.device_put(jnp.asarray(vacuum), sharding)
 
     bk = jax.jit(
-        pipeline._step_codes_auto, static_argnames=("weights",
-                                                     "exact_stencil"),
+        ongrid_step_codes, static_argnames=("weights",),
         out_shardings=sharding,
-    )(reference, tuple(weights), exact_stencil)
+    )(reference, tuple(weights))
     if vac is not None:
         bk = jnp.where(vac, jnp.uint8(13), bk)
 

@@ -1,10 +1,10 @@
-"""Compilation-cache warm-up — the TPU analog of the reference's JIT cache.
+"""Compilation-cache warm-up — the JAX analog of the reference's JIT cache.
 
 The reference precompiles every numba kernel for every dtype at install time
-(/root/reference/pybader/jits.py, entry_points.JIT_caching) so first runs are
-fast.  On TPU the equivalent is (a) enabling JAX's persistent compilation
-cache so XLA/Mosaic binaries survive across processes, and (b) optionally
-tracing the hot programs once on tiny grids so a fresh cache gets seeded.
+(pybader's jits.py, entry_points.JIT_caching) so first runs are fast.  The
+equivalent here is (a) enabling JAX's persistent compilation cache so XLA
+binaries survive across processes, and (b) optionally tracing the hot
+programs once on tiny grids so a fresh cache gets seeded.
 """
 from __future__ import annotations
 
@@ -12,16 +12,23 @@ import os
 
 import numpy as np
 
-_CACHE_DIR = os.path.expanduser(
-    os.path.join("~", ".cache", "bader-tpu", "jax_cache")
-)
+# fixed path inside the checkout: the cache directory is part of the
+# cache's key, so it must not move between runs (listed in .gitignore)
+_CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
 
 
-def enable_persistent_cache(cache_dir: str | None = None) -> str:
-    """Point JAX's persistent compilation cache at a durable directory."""
+def cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or _CHECKOUT_CACHE_DIR
+
+
+def enable_persistent_cache() -> str:
+    """Point JAX's persistent compilation cache at :func:`cache_dir`."""
     import jax
 
-    path = cache_dir or _CACHE_DIR
+    path = cache_dir()
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -2,7 +2,7 @@
 
 Independent, deliberately-naive serial implementation of grid-based Bader
 partitioning per Tang, Sanville & Henkelman (2009), written from the
-algorithm description to validate the TPU kernels.  Replicates the semantics
+algorithm description to validate the device kernels.  Replicates the semantics
 the reference CPU package exhibits with threads=1 (scan order, tie-breaks,
 basin numbering by discovery order) without sharing any code with it.
 """

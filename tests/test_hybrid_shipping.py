@@ -14,8 +14,8 @@ initial pass, and at a bounded refinement budget the two need not agree
 voxel-for-voxel.  These tests pin the measured size of that gap on
 randomized fields (exact label match at 48^3; a small bounded mismatch
 at 64^3), so a regression in either direction is caught.  Larger-grid
-numbers (128^3/192^3, bench field) are recorded in BASELINE.md
-(_exp/hybrid_accuracy.py).
+numbers (128^3/192^3, bench field) are recorded in PERF.md
+("Hybrid accuracy").
 """
 import ctypes
 
@@ -115,6 +115,6 @@ def test_hybrid_near_serial_at_shipping_config_64(libng, seed):
     dq = float(jnp.max(jnp.abs(q_ref - q_hyb)))
     total = float(rho.sum() * vox)
     # measured headroom x~4: the documented deviation stays far below the
-    # BASELINE.md-recorded 128^3 bench-field figures (0.03% voxels)
+    # PERF.md-recorded 128^3 bench-field figures (0.03% voxels)
     assert mism <= 2e-3, f"{100 * mism:.3f}% voxels differ"
     assert dq <= 2e-3 * total, f"max|dq| {dq:.2e} vs total {total:.2e}"

@@ -10,6 +10,19 @@ from tests.test_ongrid import LATTICE, SHAPE, make_density
 from pybader_tpu.interface import Bader, DEFAULT_CONFIG
 
 
+@pytest.fixture(scope="module")
+def _cli_cache(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("jax_cache"))
+
+
+@pytest.fixture(autouse=True)
+def _cache_outside_checkout(_cli_cache, monkeypatch):
+    """The CLI enables the persistent compile cache: keep it in a temp
+    directory (shared by this module's tests, so the first-run warm-up
+    happens once) and leave the checkout clean."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", _cli_cache)
+
+
 def atomic_density(seed=0):
     """Two blobs centred on ATOMS so maxima->atom mapping is clean."""
     from tests.oracle import gaussian_density
@@ -272,3 +285,51 @@ def test_interface_hybrid_carry_wiring(tmp_path, monkeypatch):
         verbose=False, carry_in=carry)
     np.testing.assert_array_equal(
         np.asarray(bader.bader_volumes), np.asarray(lab))
+
+
+def test_import_and_cli_parser_without_pandas():
+    """The main path imports no pandas: importing the interface and the
+    CLI works with pandas blocked."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'pandas':\n"
+        "            raise ImportError('pandas blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import pybader_tpu.interface, pybader_tpu.entry_points\n"
+        "print('pandas' in sys.modules)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_results_tables_without_pandas(tmp_path, monkeypatch):
+    """results() builds its tables without pandas; the optional dataframe
+    property is the only pandas user."""
+    import sys
+
+    monkeypatch.chdir(tmp_path)
+    bader = make_bader(tmp_path)
+    bader(method="ongrid", refine_mode=("changed", 1))
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    atoms = bader.results()
+    volumes = bader.results(volume_flag=True)
+    lines = atoms.splitlines()
+    assert lines[0].split() == ["a", "b", "c", "Charge", "Volume",
+                                "Distance"]
+    assert set(lines[1]) == {"-"}
+    rows = [ln.split() for ln in lines[2:2 + len(bader.atoms)]]
+    np.testing.assert_allclose([float(r[4]) for r in rows],
+                               bader.atoms_charge, atol=5e-7)
+    assert [int(r[0]) for r in rows] == list(range(len(bader.atoms)))
+    assert "Number of Electrons:" in volumes
+    with pytest.raises(ImportError):
+        bader.dataframe

@@ -160,3 +160,72 @@ def test_precompile_warm_runs():
     from pybader_tpu import precompile
 
     precompile.warm(shapes=((12, 10, 8),))
+
+
+def test_cache_dir_honours_env(tmp_path, monkeypatch):
+    from pybader_tpu import precompile
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    assert precompile.cache_dir() == str(tmp_path / "jc")
+
+
+def test_cache_dir_default_is_fixed_inside_checkout(monkeypatch):
+    """Without the env var the cache sits at one path derived from the
+    package location (never a temp name, pid or time), gitignored."""
+    import os
+
+    from pybader_tpu import precompile
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        precompile.__file__)))
+    assert precompile.cache_dir() == os.path.join(root, ".jax_cache")
+    assert precompile.cache_dir() == precompile.cache_dir()
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_enable_persistent_cache_points_jax_at_it(tmp_path, monkeypatch):
+    import jax
+
+    from pybader_tpu import precompile
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        assert precompile.enable_persistent_cache() == str(tmp_path / "jc")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "jc")
+        assert (tmp_path / "jc").is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_no_pallas_kernels_in_the_program():
+    """No module of the program imports a Pallas kernel: every layer is
+    plain XLA, so nothing needs a particular accelerator."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sources = [os.path.join(root, f) for f in
+               ("bench.py", "chip_smoke.py", "__graft_entry__.py")]
+    for d, _, files in os.walk(os.path.join(root, "pybader_tpu")):
+        sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        for bad in ("experimental.pallas", "_src.pallas", "MosaicError"):
+            assert bad not in text, (path, bad)
+    modules = sorted(
+        os.path.relpath(p, root)[:-3].replace(os.sep, ".")
+        .replace(".__init__", "") for p in sources if "pybader_tpu" in p)
+    code = (f"import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"print(sorted(k for k in sys.modules if 'pallas' in k))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -285,7 +285,7 @@ def test_full_trajectories_env_override(monkeypatch):
 
 
 def test_refine_chunked_walk_matches_unchunked(monkeypatch):
-    """The HBM-bounding chunked walk (normally only at 512^3-class edge
+    """The memory-bounding chunked walk (normally only at 512^3-class edge
     sets) must produce identical refinement to the single-bucket walk."""
     rho, w, tg = _setup(6)
     w = tuple(w)

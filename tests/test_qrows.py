@@ -4,7 +4,7 @@ The q-walker must be trajectory-identical to the f32 packed walker ON THE
 SAME (dequantised) gradient field — that isolates the walker logic (word
 decode, offset-code ongrid fallback, revisit window, stop bits, drain
 compaction) from the quantisation itself, whose accuracy-vs-speed story
-is measured separately (BASELINE.md, _exp/hybrid_accuracy.py).
+is recorded separately (PERF.md, "Hybrid accuracy").
 """
 import numpy as np
 import jax.numpy as jnp
@@ -232,7 +232,7 @@ def test_hybrid_carry_rebuilds_rows_across_format(monkeypatch):
 
 
 def test_lean_rows_build_bit_identical(monkeypatch):
-    """The two-pass lean precompute_rows (512^3 HBM path) is bit-equal to
+    """The two-pass lean precompute_rows (512^3 memory-bounded path) is bit-equal to
     the single-pass build: same gradient accumulation order, so the f64
     columns and the packed word must match exactly."""
     rho, w, tg = _setup(6)

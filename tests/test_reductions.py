@@ -1,6 +1,7 @@
 """Unit tests for the reduction/remap utilities (CPU-portable jnp code)."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from pybader_tpu.ops import reductions
 
@@ -78,3 +79,75 @@ def test_charge_volume_sum_masked_vs_segment_path():
     np.testing.assert_allclose(np.asarray(c_fast), expect_c, rtol=1e-12)
     expect_v = np.array([(lab_h == i).sum() * 0.5 for i in range(12)])
     np.testing.assert_allclose(np.asarray(v_fast), expect_v, rtol=1e-12)
+
+
+def _labels(rng, n, k, neg_frac=0.1, used=None):
+    """Labels in [0, used) (default k) with ~neg_frac negatives; labels in
+    [used, k) stay empty."""
+    used = k if used is None else used
+    lab = rng.integers(0, used, n).astype(np.int32)
+    return np.where(rng.random(n) < neg_frac, -1, lab).astype(np.int32)
+
+
+# (n, k, used): masked-sweep path (n >= 2^22, k <= 1024) and segment_sum
+# path, label counts past 256 and 1024, and empty labels (used < k)
+CV_CASES = [(10_000, 7, 7), (10_000, 300, 250), (6_000, 1500, 1500),
+            (1 << 22, 12, 9), (1 << 22, 1100, 1100)]
+
+
+@pytest.mark.parametrize("n,k,used", CV_CASES)
+def test_charge_volume_sum_vs_numpy(n, k, used):
+    rng = np.random.default_rng(n + k)
+    lab = _labels(rng, n, k, used=used)
+    rho = rng.random(n)
+    charge, volume = reductions.charge_volume_sum(
+        jnp.asarray(rho), jnp.asarray(lab), 0.25, k)
+    keep = lab >= 0
+    want_q = np.bincount(lab[keep], weights=rho[keep], minlength=k) * 0.25
+    want_v = np.bincount(lab[keep], minlength=k) * 0.25
+    np.testing.assert_allclose(np.asarray(charge), want_q, rtol=1e-12)
+    np.testing.assert_array_equal(np.asarray(volume), want_v)
+    assert (np.asarray(volume)[used:] == 0).all()
+
+
+@pytest.mark.parametrize("n,k,used", [(9_000, 23, 23), (8_192, 300, 280),
+                                      (5_000, 1100, 1000)])
+def test_masked_min_pair_vs_numpy(n, k, used):
+    rng = np.random.default_rng(k)
+    lab = _labels(rng, n, k, used=used)
+    values = rng.permutation(n).astype(np.int32)
+    mask = rng.random(n) < 0.2
+    mins, mmins = reductions.masked_min_pair(
+        jnp.asarray(values), jnp.asarray(lab), jnp.asarray(mask), k)
+    big = np.iinfo(np.int32).max
+    want = np.full(k, big)
+    want_m = np.full(k, big)
+    np.minimum.at(want, lab[lab >= 0], values[lab >= 0])
+    sel = (lab >= 0) & mask
+    np.minimum.at(want_m, lab[sel], values[sel])
+    np.testing.assert_array_equal(np.asarray(mins), want)
+    np.testing.assert_array_equal(np.asarray(mmins), want_m)
+
+
+@pytest.mark.parametrize("k", [19, 300, 1500])
+def test_remap_sweep_label_counts(k):
+    """The unrolled (k <= 256) and grouped-loop sweeps both remap exactly,
+    negatives preserved."""
+    rng = np.random.default_rng(k)
+    lab = _labels(rng, 7_000, k)
+    table = rng.permutation(k).astype(np.int32)
+    out = np.asarray(reductions.remap_sweep(
+        jnp.asarray(lab), jnp.asarray(table), k))
+    np.testing.assert_array_equal(
+        out, np.where(lab < 0, lab, table[np.clip(lab, 0, None)]))
+
+
+@pytest.mark.parametrize("k", [5, 2000])
+def test_relabel_is_a_plain_gather(k):
+    rng = np.random.default_rng(k)
+    lab = _labels(rng, 4_000, k).reshape(10, 20, 20)
+    swap = rng.integers(0, 9, k).astype(np.int32)
+    out = np.asarray(reductions.relabel(jnp.asarray(lab), jnp.asarray(swap)))
+    np.testing.assert_array_equal(
+        out, np.where(lab < 0, lab, swap[np.clip(lab, 0, None)]))
+    assert out.dtype == lab.dtype

@@ -1,7 +1,7 @@
 """CPU tests for the directional-scan flood labeller.
 
-The scan flood is the TPU partition's label backend
-(pipeline._partition_ongrid_tpu); CPU pipelines take the pointer path, so
+The scan flood is the accelerator partition's label backend
+(pipeline._labels_from_codes); CPU pipelines take the pointer path, so
 this file pins its semantics host-side: parity with the pointer-chase
 labels, and bit-equality of the ppstep>1 (grouped-plane) scan variant
 with the plain per-plane scan.
@@ -49,9 +49,7 @@ def test_ppstep_bit_identical(small_field, ppstep):
     """Grouped-plane scans are a pure latency knob: same labels as the
     per-plane scan after every directional pass of every round."""
     rho, w, bk = small_field
-    from pybader_tpu.ops.pallas_chase import _flood_seed
-
-    seed, _, _ = _flood_seed(bk, bk, False)
+    seed, _, _ = sf._flood_seed(bk, bk, False)
     codes = [sf._axis_codes(bk, axis) for axis in range(3)]
     lab1 = jnp.array(seed, copy=True)
     labp = jnp.array(seed, copy=True)
@@ -71,8 +69,8 @@ def test_ppstep_bit_identical(small_field, ppstep):
 
 def test_ppstep_for_divisibility(monkeypatch):
     # CPU backend always picks 1 (compile-time protection) — force the
-    # TPU decision logic by monkeypatching the backend probe
-    monkeypatch.setattr(sf.jax, "default_backend", lambda: "tpu")
+    # accelerator decision logic by monkeypatching the backend probe
+    monkeypatch.setattr(sf.jax, "default_backend", lambda: "gpu")
     assert sf._ppstep_for(384) == 8
     assert sf._ppstep_for(250) == 2
     assert sf._ppstep_for(244) == 4

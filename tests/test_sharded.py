@@ -1,6 +1,6 @@
 """Mesh-shape parity: sharded partition must match single-device exactly.
 
-The TPU analog of the reference's thread-count-invariance assumption
+The device-mesh analog of the reference's thread-count-invariance assumption
 (results must not depend on the chunking).  Runs on 8 virtual CPU devices
 (see conftest.py).
 """
@@ -219,3 +219,22 @@ def test_walk_sharded_matches_single_device_walker():
         np.testing.assert_array_equal(np.asarray(pos_n), np.asarray(pos_1))
         np.testing.assert_array_equal(np.asarray(done_n),
                                       np.asarray(done_1))
+
+
+def test_dryrun_multichip_on_four_devices(capsys):
+    """The four-card check (sharded partition, refinement, relabel,
+    charges, surface distance vs one device) on 4 of the virtual devices."""
+    import __graft_entry__
+
+    __graft_entry__.dryrun_multichip(4)
+    assert "match single-device" in capsys.readouterr().out
+
+
+def test_check_sharded_needs_enough_devices():
+    import pytest
+
+    import __graft_entry__
+
+    rho = make_density(0)
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        __graft_entry__.check_sharded(16, rho, LATTICE, None)
